@@ -5,7 +5,7 @@ The reference consumes OpenFHE's EvalBootstrap in three places: BitonicSort
 boots when the level runs out (/root/reference/src/sort_algo.h:1436-1438),
 the k-way network boots between stages (k-way/EvalUtils.cpp:57-94), and
 compositeSign lazily boots between f/g iterations (sign.cpp:160-185).
-This module provides the TPU-native capability behind those hooks.
+This module provides the device-side capability behind those hooks.
 
 Design (tuned to this framework's workloads, where slot counts are the
 array size N <= 2048 rather than the full ring):

@@ -1,6 +1,6 @@
 """RNS-CKKS evaluator: the device-side homomorphic op surface.
 
-Implements, TPU-native, exactly the OpenFHE CryptoContext surface the
+Implements, in plain JAX, exactly the OpenFHE CryptoContext surface the
 reference consumes (SURVEY.md L0): EvalAdd/Sub/Mult/Square (ct-ct, ct-pt,
 ct-scalar) with FLEXIBLEAUTO-style lazy rescaling, EvalMultAndRelinearize,
 EvalRotate via Galois automorphism + hybrid key switching, hoisted fast
@@ -38,11 +38,9 @@ except ImportError:                    # pragma: no cover - API drift guard
 
 def _concrete_ctx():
     """Context manager guarding cross-call cache fills: a no-op outside any
-    trace (the common, per-op-jit driving mode — Pallas kernels work there),
-    ensure_compile_time_eval when an OUTER jit is tracing (so cached device
-    constants stay concrete instead of leaking tracers).  Pallas cannot run
-    under the latter's EvalTrace; code paths reachable while tracing must
-    use the XLA NTT fallback (see _to_eval_domain)."""
+    trace (the common, per-op-jit driving mode), ensure_compile_time_eval
+    when an OUTER jit is tracing (so cached device constants stay concrete
+    instead of leaking tracers)."""
     from contextlib import nullcontext
     return nullcontext() if _trace_state_clean() \
         else jax.ensure_compile_time_eval()
@@ -52,7 +50,6 @@ from .params import CkksParams, CkksConfig, BASE_LIMBS
 from .keys import KeyGenerator, Encryptor, Decryptor
 from .rns import add_mod, sub_mod, mont_mul, shoup_mul, barrett_reduce_u32
 from .ntt import ntt_fwd_t, ntt_inv_t
-from .pallas_ntt import ntt_fwd_pallas, ntt_inv_pallas
 
 SCALE_TOL = 2.0 ** -25
 
@@ -101,28 +98,18 @@ def _shoup_host(w: int, p: int) -> tuple[int, int]:
     return w % p, ((w % p) << 32) // p
 
 
-def _resolve_backend(name: str) -> str:
-    """'auto' -> 'pallas' on TPU, 'xla' elsewhere."""
-    if name != "auto":
-        return name
-    try:
-        return "pallas" if jax.default_backend() == "tpu" else "xla"
-    except Exception:
-        return "xla"
-
-
 class _LevelTables:
     """Per-limb-count device constants for rescale / keyswitch / moddown.
 
-    Registered as a JAX pytree (arrays = leaves, digit structure + NTT
-    backend = static aux data) so whole-op kernels can be jitted with one
-    compile per limb count.  The big [rows, n] twiddle tables are NOT
-    sliced per level: every level shares the same full-chain device
-    buffers (XLA tables or Pallas packs) and row selection happens inside
-    the jitted op — at ring 2^17 per-level slices would pin several GB.
+    Registered as a JAX pytree (arrays = leaves, digit structure = static
+    aux data) so whole-op kernels can be jitted with one compile per limb
+    count.  The big [rows, n] twiddle tables are NOT sliced per level:
+    every level shares the same full-chain device buffers and row
+    selection happens inside the jitted op — at ring 2^17 per-level slices
+    would pin several GB.
     """
 
-    def __init__(self, P: CkksParams, l: int, backend: str = "xla"):
+    def __init__(self, P: CkksParams, l: int):
         q = P.q
         n = P.n
         nq = P.nq
@@ -133,7 +120,6 @@ class _LevelTables:
         self.nq = nq
         self.ksp = ksp
         self.comp = P.comp
-        self.backend = backend
 
         # --- small per-row prime vectors (q / ext / special row sets) ---
         sprows = np.arange(nq, nq + ksp)
@@ -142,18 +128,7 @@ class _LevelTables:
         self.ext_p = ntt.p[ext_rows]
         self.sp_p = ntt.p[sprows]
 
-        # --- NTT backend tables (shared full-chain buffers) ---
-        if backend.startswith("pallas"):
-            pk = ntt.pallas_tables()
-            self.pk = pk
-            self.rows_q = jnp.asarray(np.arange(l, dtype=np.int32))
-            self.rows_ext = jnp.asarray(ext_rows.astype(np.int32))
-            self.rows_sp = jnp.asarray(sprows.astype(np.int32))
-        # XLA tables are kept on BOTH backends: plaintext encoding under an
-        # outer jit trace must run inside ensure_compile_time_eval, whose
-        # EvalTrace cannot execute Pallas kernels (no program_id eval rule) —
-        # the pure-jnp path is the fallback there.  These are references to
-        # the shared NttContext buffers, not copies.
+        # --- NTT tables: references to the shared NttContext buffers ---
         self.t_psi = ntt.psi
         self.t_psi_sh = ntt.psi_sh
         self.t_ipsi = ntt.ipsi
@@ -239,8 +214,7 @@ class _LevelTables:
         # CKKS noise) — same design as OpenFHE ApproxSwitchCRTBasis.
 
     # ---- pytree protocol: arrays traced, structure static ----
-    _STATIC = ("l", "ndig", "digits", "ext_primes", "nq", "ksp",
-               "comp", "backend")
+    _STATIC = ("l", "ndig", "digits", "ext_primes", "nq", "ksp", "comp")
 
     def tree_flatten(self):
         keys = tuple(sorted(k for k in self.__dict__ if k not in self._STATIC))
@@ -276,47 +250,27 @@ jax.tree_util.register_pytree_node(
 
 # ===================== device kernels (pure functions) =====================
 #
-# NTT dispatch: every kernel below reaches the transform through these four
-# helpers, which pick the Pallas fused-stage kernels (TPU; 'pallas-interpret'
-# for CPU-interpreted tests) or the stage-unrolled XLA path based on the
-# static T.backend.  Row sets: 'q' = chain prefix [0, k), 'ext' = q rows of
-# the level plus the special primes, 'sp' = special primes only.
+# NTT row sets: every kernel below reaches the transform through these
+# helpers.  'q' = chain prefix [0, k), 'ext' = q rows of the level plus the
+# special primes, 'sp' = special primes only.
 
 
 def _fwd_q(x, T: "_LevelTables", k: int):
-    if T.backend.startswith("pallas"):
-        return ntt_fwd_pallas(x, T.pk, T.rows_q[:k],
-                              interpret=T.backend == "pallas-interpret")
-    return _fwd_q_xla(x, T, k)
-
-
-def _fwd_q_xla(x, T: "_LevelTables", k: int):
-    """Stage-unrolled pure-jnp forward NTT: works under EvalTrace (inside
-    jax.ensure_compile_time_eval), which the Pallas kernels cannot."""
     return ntt_fwd_t(x, T.t_p[:k], T.t_psi[:k], T.t_psi_sh[:k])
 
 
 def _inv_q(x, T: "_LevelTables", lo: int, hi: int):
-    if T.backend.startswith("pallas"):
-        return ntt_inv_pallas(x, T.pk, T.rows_q[lo:hi],
-                              interpret=T.backend == "pallas-interpret")
     return ntt_inv_t(x, T.t_p[lo:hi], T.t_ipsi[lo:hi], T.t_ipsi_sh[lo:hi],
                      T.t_ninv[lo:hi], T.t_ninv_sh[lo:hi])
 
 
 def _fwd_ext(x, T: "_LevelTables"):
-    if T.backend.startswith("pallas"):
-        return ntt_fwd_pallas(x, T.pk, T.rows_ext,
-                              interpret=T.backend == "pallas-interpret")
     l, nq, ksp = T.l, T.nq, T.ksp
     cat = lambda t: jnp.concatenate([t[:l], t[nq:nq + ksp]], axis=0)
     return ntt_fwd_t(x, cat(T.t_p), cat(T.t_psi), cat(T.t_psi_sh))
 
 
 def _inv_sp(x, T: "_LevelTables"):
-    if T.backend.startswith("pallas"):
-        return ntt_inv_pallas(x, T.pk, T.rows_sp,
-                              interpret=T.backend == "pallas-interpret")
     nq, ksp = T.nq, T.ksp
     s = slice(nq, nq + ksp)
     return ntt_inv_t(x, T.t_p[s], T.t_ipsi[s], T.t_ipsi_sh[s],
@@ -368,9 +322,6 @@ def _inv_q_dyn(x, T: "_LevelTables", idx):
     """Inverse NTT of a single q row whose chain index `idx` is a traced
     scalar (the rescale kernel's dropped-prime row varies per logical limb
     count within one compiled bucket shape)."""
-    if T.backend.startswith("pallas"):
-        return ntt_inv_pallas(x, T.pk, idx.reshape(1).astype(jnp.int32),
-                              interpret=T.backend == "pallas-interpret")
     take = lambda t: jax.lax.dynamic_slice_in_dim(t, idx, 1, axis=0)
     return ntt_inv_t(x, take(T.t_p), take(T.t_ipsi), take(T.t_ipsi_sh),
                      take(T.t_ninv), take(T.t_ninv_sh))
@@ -603,7 +554,6 @@ class CkksContext:
         self._init_common(cfg)
         P = self.params
         self.keygen = KeyGenerator(P)
-        self.keygen.backend = self.backend
         self.encryptor = Encryptor(P, self.keygen.public_key)
         self.decryptor = Decryptor(P, self.keygen.sk)
         self.relin_key = jnp.asarray(self.keygen.gen_relin_key())
@@ -611,7 +561,6 @@ class CkksContext:
     def _init_common(self, cfg: CkksConfig):
         self.cfg = cfg
         self.params = CkksParams(cfg)
-        self.backend = _resolve_backend(cfg.ntt_backend)
         self.n = self.params.n
         self.delta = float(2 ** cfg.scale_bits)
         from .keystore import KeyStore
@@ -629,10 +578,10 @@ class CkksContext:
         self._perm_cache: dict[int, jnp.ndarray] = {}
         # plaintext cache: byte-capped LRU.  A full-fidelity N=128 sort
         # encodes hundreds of [~95, 2^17] u32 mask plaintexts (~50 MB
-        # each); unbounded caching OOMed the 16 GB v5e alongside 7.5 GB
-        # of keyswitch keys (round-4 bench).  Masks re-encode in ~ms, so
-        # eviction costs little; the cap keeps hot reuse (BSGS diagonals,
-        # per-trial mask reuse) effective.
+        # each), so an unbounded cache grows with the sort and competes
+        # with the keyswitch keys for device memory.  Masks re-encode from
+        # the host row cache, so eviction costs little; the cap keeps hot
+        # reuse (BSGS diagonals, per-trial mask reuse) effective.
         import collections
         import os as _os
         self._pt_cache: "collections.OrderedDict" = collections.OrderedDict()
@@ -655,7 +604,7 @@ class CkksContext:
     def for_evaluation(cls, cfg: CkksConfig, public_key, relin_key,
                        rot_keys: dict, conj_key=None) -> "CkksContext":
         """Blind-evaluation (server-side) context: public material only,
-        no secret key.  The TPU analogue of the reference's deserialized
+        no secret key.  The analogue of the reference's deserialized
         CryptoContext (/root/reference/src/sort.h:31-74): the server can
         encrypt, evaluate, and serialize — decrypt() raises."""
         self = cls.__new__(cls)
@@ -674,7 +623,7 @@ class CkksContext:
         """Physical row count for logical limb count l: next multiple of
         cfg.limb_pad, clamped to the chain length.  Collapses the ~L
         distinct per-limb-count kernel compiles of a deep chain to
-        ~L/limb_pad (the round-3 compile explosion, VERDICT r3 Weak #2)."""
+        ~L/limb_pad (about 46 limb counts x ~8 kernels at depth 46)."""
         B = self.cfg.limb_pad
         if B <= 1:
             return l
@@ -704,7 +653,7 @@ class CkksContext:
         # without it the constants would be created as tracers and leak
         # into this cross-call cache.
         with _concrete_ctx():
-            T = _LevelTables(self.params, l, self.backend)
+            T = _LevelTables(self.params, l)
             npi_rows = np.concatenate([
                 np.arange(l),
                 np.arange(self.params.nq,
@@ -870,9 +819,9 @@ class CkksContext:
         t0 = _time.time()
         # two-level cache: device plaintexts are HBM-capped (LRU above),
         # but the HOST coefficient rows are cheap RAM — on device eviction
-        # only the transfer + device NTT re-runs, not the iFFT + per-limb
-        # reduction (round-4 census: re-encoding 131 masks cost 94 s of a
-        # 134 s warm N=128 sort)
+        # only the transfer + device NTT re-runs, not the host iFFT +
+        # per-limb reduction, which an N=128 sort would otherwise repeat
+        # for ~130 masks every trial
         if not hasattr(self, "_pt_host_cache"):
             import collections
             self._pt_host_cache = collections.OrderedDict()
@@ -907,10 +856,8 @@ class CkksContext:
 
         Called from the cross-call plaintext cache, so the result must be
         CONCRETE even when an outer jit is tracing.  Outside any trace the
-        jitted encode kernel (Pallas NTT on TPU) runs directly.  Under an
-        outer trace we must escape it with jax.ensure_compile_time_eval,
-        whose EvalTrace cannot run pallas_call (no 'program_id' eval rule —
-        the round-2 TPU crash), so that branch pins the pure-jnp XLA NTT."""
+        jitted encode kernel runs directly; under an outer trace the same
+        arithmetic runs inside jax.ensure_compile_time_eval."""
         rmod = np.array([(1 << 32) % self.params.q[i]
                          for i in range(limbs)], dtype=np.uint32)
         rsh = np.array([(int(r) << 32) // self.params.q[i]
@@ -924,7 +871,7 @@ class CkksContext:
             dev = shoup_mul(jnp.asarray(rows), jnp.asarray(rmod).reshape(-1, 1),
                             jnp.asarray(rsh).reshape(-1, 1),
                             T.q_p.reshape(-1, 1))
-            return _fwd_q_xla(dev, T, limbs)
+            return _fwd_q(dev, T, limbs)
 
     def _scalar_limb_consts(self, m: int, limbs: int):
         """Integer scalar (possibly negative) as per-limb plain constants."""
@@ -975,8 +922,7 @@ class CkksContext:
         canonical ladder each step, so any seed drift (bootstrap output
         lands ~1% off; plaintext mults at Delta != S[l] add more) grows
         double-exponentially through long sign chains — bitonic's
-        repeated bootstrap->sign cycles ran scales to inf/0 (round-3
-        debug).  When a deg-1 ct deviates by more than sqrt(2), spend one
+        repeated bootstrap->sign cycles ran scales to inf/0 without it.  When a deg-1 ct deviates by more than sqrt(2), spend one
         level to land back on canonical — the OpenFHE adjust-scale
         analogue.  Normal sort flows stay within ~5% and never trigger."""
         if ct.noise_deg != 1 or \
@@ -1200,8 +1146,8 @@ class CkksContext:
         `ct` (must be deg-1): chosen so the deg-2 product rescales EXACTLY
         onto the canonical ladder — OpenFHE's ScalingFactorReal analogue.
         Encoding at the fresh Delta instead seeds scale drift that the
-        _anchor/adjust machinery then burns levels to repair (round-4
-        census: 41 adjusts per N=128 sort; VERDICT r4 Weak #6)."""
+        _anchor/adjust machinery then burns levels to repair (dozens of
+        extra adjusts per N=128 sort)."""
         P = self.params
         l = ct.limbs
         if l - P.comp < P.base_limbs:
@@ -1352,8 +1298,8 @@ class CkksContext:
         encode(roll(v, -r)) == sigma_g(encode(v)) exactly: the
         automorphism is an integer-coefficient permutation commuting with
         the embedding.  Replaces per-mask host iFFT + RNS reduction +
-        48 MB transfers in the baby-step mask families (round-4 census:
-        mask encoding/transfer was ~60-90 s of a ~100 s warm N=128 sort)."""
+        48 MB transfers in the baby-step mask families (~130 masks per
+        N=128 sort)."""
         kk = r % (self.n // 2)
         if kk == 0:
             return pt

@@ -2,7 +2,7 @@
 
 The FHE protocol splits into a client (key generation, encode, encrypt,
 decrypt — holds the secret key) and a server (blind homomorphic evaluation
-on TPU).  This module is the client's math: plain numpy, exact u64 modular
+on the accelerator).  This module is the client's math: plain numpy, exact u64 modular
 arithmetic (products of <2^31 values fit in u64).  It mirrors the device NTT
 in ntt.py (same twiddle layout) so host- and device-generated polynomials
 interoperate bit-exactly.

@@ -105,32 +105,19 @@ class KeyGenerator:
         """Key switching key for s' -> s: u32 [dnum, 2, nq + nsp, n],
         NTT+Montgomery domain.
 
-        Generated ON DEVICE as a single jitted kernel (batched NTTs over
-        all rows) — at ring 2^17 with ~100 limbs a host-loop keygen would
-        take hours; on TPU it is milliseconds per key after the one
-        compile.  Only the small secret/error polynomials are sampled on
-        the host."""
-        import jax.numpy as jnp
-
+        Assembled ON DEVICE as a single jitted kernel (batched NTTs over
+        all rows): at ring 2^17 with ~100 limbs a host-loop keygen would
+        take hours.  The uniform and error polynomials are sampled on the
+        host from the seeded generator."""
         P = self.params
         n = P.n
         qs = P.q
         sp = P.p_special
         rows = qs + sp
         nrows = len(rows)
-        digits = self._digit_indices()
-        dnum = len(digits)
-        Pint = P.P_int
-        Q = 1
-        for q in qs:
-            Q *= q
+        dnum = len(self._digit_indices())
         rows_i64 = np.array(rows, dtype=np.int64)
-
-        if not hasattr(self, "_ksk_consts"):
-            rmod = np.array([(1 << 32) % p for p in rows], dtype=np.uint32)
-            rsh = np.array([(int(r) << 32) // p
-                            for r, p in zip(rmod, rows)], dtype=np.uint32)
-            self._ksk_consts = (jnp.asarray(rmod), jnp.asarray(rsh))
+        if not hasattr(self, "_s_red"):
             self._s_red = jnp.asarray(
                 (self.sk.s_coeffs[None, :] % rows_i64[:, None])
                 .astype(np.uint32))
@@ -152,32 +139,9 @@ class KeyGenerator:
                  rows_i64[None, :, None]).astype(np.uint32)
 
         # per-digit reconstruction weights P*W_j mod each row prime (Shoup)
-        w = np.empty((dnum, nrows), dtype=np.uint32)
-        wsh = np.empty((dnum, nrows), dtype=np.uint32)
-        for j, dig in enumerate(digits):
-            Dj = 1
-            for i in dig:
-                Dj *= qs[i]
-            Dhat = Q // Dj
-            Wj = Dhat * nt.mod_inverse(Dhat % Dj, Dj)
-            for r, p in enumerate(rows):
-                c = (Pint % p) * (Wj % p) % p
-                w[j, r] = c
-                wsh[j, r] = (c << 32) // p
-
-        rmod, rsh = self._ksk_consts
-        backend = getattr(self, "backend", "xla")
-        if backend.startswith("pallas"):
-            rows = jnp.asarray(np.arange(nrows, dtype=np.int32))
-            return _ksk_kernel_pallas(
-                self._s_red, sp_red, jnp.asarray(a_all),
-                jnp.asarray(e_red), jnp.asarray(w), jnp.asarray(wsh),
-                rmod, rsh, P.ntt.p, P.mont_neg_p_inv,
-                P.ntt.pallas_tables(), rows,
-                backend == "pallas-interpret")
+        w, wsh, rmod, rsh = self._ksk_weights()
         return _ksk_kernel(self._s_red, sp_red, jnp.asarray(a_all),
-                           jnp.asarray(e_red), jnp.asarray(w),
-                           jnp.asarray(wsh), rmod, rsh, P.ntt.p,
+                           jnp.asarray(e_red), w, wsh, rmod, rsh, P.ntt.p,
                            P.ntt.psi, P.ntt.psi_sh, P.mont_neg_p_inv)
 
     def _ksk_weights(self):
@@ -236,15 +200,6 @@ class KeyGenerator:
                 .astype(np.uint32))
         key = jax.random.fold_in(
             jax.random.PRNGKey(P.cfg.seed ^ 0x5EED), g)
-        backend = getattr(self, "backend", "xla")
-        if backend.startswith("pallas"):
-            rows = jnp.asarray(np.arange(len(P.q) + len(P.p_special),
-                                         dtype=np.int32))
-            return _ksk_kernel_dev_pallas(
-                key, self._s_red, jnp.asarray(s_rot), w, wsh, rmod, rsh,
-                P.ntt.p, P.mont_neg_p_inv, jnp.float32(P.cfg.sigma),
-                P.ntt.pallas_tables(), rows,
-                backend == "pallas-interpret")
         return _ksk_kernel_dev(
             key, self._s_red, jnp.asarray(s_rot), w, wsh, rmod, rsh,
             P.ntt.p, P.mont_neg_p_inv, jnp.float32(P.cfg.sigma),
@@ -278,17 +233,19 @@ def _negacyclic_square_int(s: np.ndarray, p: int, n: int) -> np.ndarray:
     return np.where(s2 > p // 2, s2 - p, s2)
 
 
-def _ksk_kernel_body(s_red, sp_red, a, e_red, w, wsh, rmod, rsh, p, npi,
-                     fwd):
+def _ksk_kernel_body(s_red, sp_red, a, e_red, w, wsh, rmod, rsh,
+                     p, psi, psi_sh, npi):
     """Device-side KSK assembly: b = e - a*s + P*W_j*s' (all NTT+Mont).
 
     s_red/sp_red: [nrows, n] plain residues; a: [dnum, nrows, n] uniform
     (treated as Montgomery-domain, still uniform); e_red: [dnum, nrows, n];
-    w/wsh: [dnum, nrows] Shoup pairs for P*W_j folded with R; fwd: the
-    forward-NTT backend closure."""
+    w/wsh: [dnum, nrows] Shoup pairs for P*W_j folded with R; psi/psi_sh:
+    forward-NTT tables of all rows."""
     import jax.numpy as jnp
+    from .ntt import ntt_fwd_t
     from .rns import mont_mul, shoup_mul, add_mod, sub_mod
 
+    fwd = lambda x: ntt_fwd_t(x, p, psi, psi_sh)
     p1 = p.reshape(-1, 1)
     p2 = p.reshape(1, -1, 1)
     npi2 = npi.reshape(1, -1, 1)
@@ -304,34 +261,20 @@ def _ksk_kernel_body(s_red, sp_red, a, e_red, w, wsh, rmod, rsh, p, npi,
     return jnp.stack([b, a], axis=1)                   # [dnum, 2, nrows, n]
 
 
-def _ksk_kernel_impl(s_red, sp_red, a, e_red, w, wsh, rmod, rsh,
-                     p, psi, psi_sh, npi):
-    from .ntt import ntt_fwd_t
-    return _ksk_kernel_body(
-        s_red, sp_red, a, e_red, w, wsh, rmod, rsh, p, npi,
-        lambda x: ntt_fwd_t(x, p, psi, psi_sh))
-
-
-def _ksk_kernel_pallas_impl(s_red, sp_red, a, e_red, w, wsh, rmod, rsh,
-                            p, npi, pk, rows, interpret):
-    from .pallas_ntt import ntt_fwd_pallas
-    return _ksk_kernel_body(
-        s_red, sp_red, a, e_red, w, wsh, rmod, rsh, p, npi,
-        lambda x: ntt_fwd_pallas(x, pk, rows, interpret=interpret))
-
-
 def _ksk_dev_body(key, s_red, srot_small, w, wsh, rmod, rsh, p, npi,
-                  sigma, fwd):
+                  sigma, psi, psi_sh):
     """Device-PRNG KSK assembly, STREAMED per digit with lax.map: the
     whole-key draw held a ~1 GB bits tensor plus ~2 GB of intermediates
-    live at once, which OOMed bootstrap-heavy sorts that regenerate keys
-    mid-flight (round-5 bitonic trial).  Per-digit transients are ~8x
+    live at once, which ran bootstrap-heavy sorts that regenerate keys
+    mid-flight out of device memory.  Per-digit transients are ~8x
     smaller; PRNG streams are split deterministically per digit so keys
     stay bit-reproducible across regenerations."""
     import jax
     import jax.numpy as jnp
+    from .ntt import ntt_fwd_t
     from .rns import add_mod, sub_mod, shoup_mul, mont_mul
 
+    fwd = lambda x: ntt_fwd_t(x, p, psi, psi_sh)
     nrows = s_red.shape[0]
     n = srot_small.shape[0]
     p1 = p.reshape(-1, 1)
@@ -370,28 +313,9 @@ def _ksk_dev_body(key, s_red, srot_small, w, wsh, rmod, rsh, p, npi,
     return jax.lax.map(per_digit, (dkeys, w, wsh))    # [dnum, 2, nrows, n]
 
 
-def _ksk_kernel_dev_impl(key, s_red, srot_small, w, wsh, rmod, rsh,
-                         p, npi, sigma, psi, psi_sh):
-    from .ntt import ntt_fwd_t
-    return _ksk_dev_body(key, s_red, srot_small, w, wsh, rmod, rsh, p,
-                         npi, sigma, lambda x: ntt_fwd_t(x, p, psi, psi_sh))
-
-
-def _ksk_kernel_dev_pallas_impl(key, s_red, srot_small, w, wsh, rmod, rsh,
-                                p, npi, sigma, pk, rows, interpret):
-    from .pallas_ntt import ntt_fwd_pallas
-    return _ksk_dev_body(
-        key, s_red, srot_small, w, wsh, rmod, rsh, p, npi, sigma,
-        lambda x: ntt_fwd_pallas(x, pk, rows, interpret=interpret))
-
-
 import jax as _jax  # noqa: E402
-_ksk_kernel = _jax.jit(_ksk_kernel_impl)
-_ksk_kernel_pallas = _jax.jit(_ksk_kernel_pallas_impl,
-                              static_argnums=(12,))
-_ksk_kernel_dev = _jax.jit(_ksk_kernel_dev_impl)
-_ksk_kernel_dev_pallas = _jax.jit(_ksk_kernel_dev_pallas_impl,
-                                  static_argnums=(12,))
+_ksk_kernel = _jax.jit(_ksk_kernel_body)
+_ksk_kernel_dev = _jax.jit(_ksk_dev_body)
 
 
 class Encryptor:

@@ -3,7 +3,7 @@
 All functions here run on the host in pure Python / numpy (client-side of the
 FHE protocol).  Device-side modular arithmetic lives in :mod:`.rns`.
 
-TPU-native rebuild of the parameter-generation layer the reference delegates
+JAX-side rebuild of the parameter-generation layer the reference delegates
 to OpenFHE (reference: /root/reference/src/sort_algo.h:87-201 chooses depth /
 scaleMod; OpenFHE generates the actual prime chain internally).
 """

@@ -1,4 +1,4 @@
-"""Negacyclic NTT over RNS limbs, vectorized for TPU.
+"""Negacyclic NTT over RNS limbs, as plain batched XLA operations.
 
 Forward transform: iterative Cooley-Tukey (decimation in time) with the
 2n-th root psi merged into the twiddles (Longa–Naehrig form), natural input
@@ -8,8 +8,7 @@ multiply.  Pointwise products in the transform domain realise negacyclic
 (mod X^n + 1) convolution, which is what CKKS needs.
 
 The stage loop is a Python loop over log2(n) statically-shaped reshapes, so
-XLA sees a fixed DAG of fused element-wise passes; a Pallas fused-stage
-kernel backend (whole limb resident in VMEM) plugs in behind the same API.
+XLA sees a fixed DAG of fused element-wise passes, one per stage.
 
 Replaces OpenFHE's NTT (used implicitly by every DCRTPoly op in
 /root/reference; see SURVEY.md §3 "where the cycles actually go").
@@ -58,20 +57,6 @@ class NttContext:
         self.ipsi_sh = jnp.asarray(ipsi_sh)
         self.n_inv = jnp.asarray(n_inv)
         self.n_inv_sh = jnp.asarray(n_inv_sh)
-        # host copies retained for the Pallas pack builder
-        self._host = dict(psi=psi, psi_sh=psi_sh, ipsi=ipsi,
-                          ipsi_sh=ipsi_sh, n_inv=n_inv, n_inv_sh=n_inv_sh)
-        self._pallas = None
-
-    def pallas_tables(self):
-        """Whole-chain Pallas twiddle packs (built on first use)."""
-        if self._pallas is None:
-            from .pallas_ntt import build_pallas_tables
-            h = self._host
-            self._pallas = build_pallas_tables(
-                self.primes, self.n, h["psi"], h["psi_sh"], h["ipsi"],
-                h["ipsi_sh"], h["n_inv"], h["n_inv_sh"])
-        return self._pallas
 
 
 def _bcast(w, extra_dims):

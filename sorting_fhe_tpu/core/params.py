@@ -12,8 +12,8 @@ prime chain).  Here we generate the chain ourselves:
 
 All primes are NTT-friendly (≡ 1 mod 2n) and < 2^31 so device arithmetic
 stays in uint32 (see rns.py).  The reference uses 40-60 bit primes via
-OpenFHE; on TPU the uint32 RNS with more limbs is the hardware-native
-choice (no 64-bit integer datapath).
+OpenFHE; here more, narrower limbs keep every product inside a 32x32-bit
+multiply.
 """
 
 from __future__ import annotations
@@ -36,8 +36,8 @@ class CkksConfig:
     `scale_bits` is the TOTAL log2 of the scaling factor Delta per
     multiplicative level; `comp` primes of ~scale_bits/comp bits realise it
     (composite scaling — the uint32-RNS answer to OpenFHE's 40-60 bit
-    primes: TPU has no 64-bit datapath, so a deep-precision level is a
-    *pair* of ~26-bit primes dropped together at rescale).
+    primes: with 31-bit limbs a deep-precision level is a *pair* of
+    ~26-29-bit primes dropped together at rescale).
     """
     ring_dim: int = 1 << 13
     mult_depth: int = 10
@@ -46,26 +46,23 @@ class CkksConfig:
     base_mod_bits: int = 30       # size of each base ("first modulus") prime
     dnum: int = 3                 # hybrid key-switch digit count
     num_special_primes: int | None = None  # default: ceil(nq/dnum)
-    # rotation-key HBM budget (MB): None keeps every generated key
-    # resident (dict semantics); a value caps resident rotation keys in a
-    # device LRU with deterministic on-demand regeneration
-    # (core/keystore.py) — required for pipelines whose key set exceeds
-    # HBM (e.g. MEHP24 N>=32 at ring 2^17 needs ~20-35 keys x ~0.5 GB)
+    # rotation-key device-memory budget (MB): None keeps every generated
+    # key resident (dict semantics); a value caps resident rotation keys in
+    # a device LRU with deterministic on-demand regeneration
+    # (core/keystore.py) — for pipelines whose key set outgrows device
+    # memory (e.g. MEHP24 N>=32 at ring 2^17 needs ~20-35 keys x ~0.5 GB)
     rot_key_budget_mb: int | None = None
     seed: int = 2024
     sigma: float = 3.19           # error stddev
     batch_size: int | None = None  # default n/2 slots
-    # NTT backend: 'auto' (pallas on TPU, xla elsewhere), 'xla', 'pallas',
-    # or 'pallas-interpret' (CPU-interpreted Pallas, for equality tests)
-    ntt_backend: str = "auto"
     # secret key Hamming weight: None = uniform ternary; an int enables the
     # sparse-ternary secret bootstrapping needs (core/bootstrap.py)
     secret_hw: int | None = None
     # limb-count bucketing: pad ciphertext towers to the next multiple of
     # `limb_pad` limbs inside the jitted kernels, collapsing the ~L distinct
     # limb counts of a deep chain to ~L/limb_pad compiled shapes per kernel
-    # (the round-3 compile explosion: ~46 limb counts x ~8 kernels x 30-60 s
-    # of XLA compile each).  Rows in [logical_limbs, bucket) hold garbage
+    # (~46 limb counts x ~8 kernels at depth 46, each a separate XLA
+    # compile).  Rows in [logical_limbs, bucket) hold garbage
     # residues of SOME value ≡ the ciphertext mod Q_l — every kernel is
     # residue-wise mod arithmetic, so results sliced to the logical limbs
     # are exact.  1 = exact shapes (no padding).

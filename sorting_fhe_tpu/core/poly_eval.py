@@ -87,8 +87,8 @@ class _SymEval:
 def _memo_deg1(se: _SymEval, cache: dict, i):
     """Fetch cache[i] normalized to noise degree 1, writing the rescaled
     value back so REUSED powers/baby-steps rescale ONCE instead of once
-    per consumer (round-4 census: the per-use _ensure_deg1 inside mult
-    re-rescaled shared T_i hundreds of times per sort)."""
+    per consumer (the per-use _ensure_deg1 inside mult would re-rescale
+    shared T_i hundreds of times per sort)."""
     t = cache[i]
     if _is_ct(t) and getattr(t, "noise_deg", 1) == 2:
         t = se.ctx.rescale(t)

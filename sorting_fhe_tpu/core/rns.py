@@ -1,10 +1,11 @@
 """Device-side RNS modular arithmetic in pure uint32 jax.numpy.
 
-TPUs have no native 64-bit integer multiply, so every wide operation is built
-from 16-bit digit splits of uint32 values (mulhi emulation), Montgomery
-reduction for variable x variable products, and Shoup multiplication for
-variable x constant products.  These functions are plain jnp code, so they
-work identically inside XLA-jitted ops and inside Pallas kernel bodies.
+Every wide operation is built from 16-bit digit splits of uint32 values
+(mulhi emulation, no 64-bit integer type needed), Montgomery reduction for
+variable x variable products, and Shoup multiplication for variable x
+constant products.  These functions are plain jnp code that XLA fuses into
+the surrounding op.  Whether a native 32x32->64 product is faster on the
+GPU is not measured yet.
 
 Conventions
 -----------
@@ -25,8 +26,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-# plain int literal: weak-typed in jnp ops, and safe to use inside Pallas
-# kernel bodies (a jnp scalar would be captured as an illegal kernel const)
+# plain int literal: weak-typed in jnp ops
 U16_MASK = 0xFFFF
 
 

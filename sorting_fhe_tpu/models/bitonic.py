@@ -99,8 +99,8 @@ class BitonicSort:
                     result = self.bootstrap_hook(result)
                 m1, m2, m3, m4 = self._stage_masks(k, j)
                 # canonical-factor mask encodes: products land back on the
-                # scale ladder (drift here seeded the round-3 runaway that
-                # _anchor was built to contain)
+                # scale ladder (drift here seeds the scale runaway that
+                # _anchor exists to contain)
                 arr1 = ctx.mult_plain(result, m1, N)
                 arr2 = ctx.mult_plain(result, m2, N)
                 arr3 = ctx.mult_plain(result, m3, N)

@@ -1,7 +1,7 @@
 """DirectSort: SIMD-batched rank construction + sinc-kernel oblivious
 permutation ("rotation index checking").
 
-TPU-native rebuild of /root/reference/src/sort_algo.h:61-774 (the repo's own
+JAX rebuild of /root/reference/src/sort_algo.h:61-774 (the repo's own
 algorithm, eprint 2025/1170):
 
   constructRank        (sort_algo.h:368-506)  rank_i = sum_s compare(x, rot(x, s))
@@ -13,7 +13,7 @@ algorithm, eprint 2025/1170):
 
 The OpenMP parallel-for/critical accumulation patterns of the reference
 become pure-functional accumulation; the SIMD batching maps onto full-width
-TPU ciphertext ops.
+device ciphertext ops.
 """
 
 from __future__ import annotations
@@ -94,7 +94,7 @@ def minimal_rotations(N: int, max_batch: int = 1 << 16,
                       cap_log2: int = 10) -> list[int]:
     """Power-of-two key set: every rotation the pipelines need composes
     from these via the binary decomposer.  ~2.5x fewer keys than the
-    reference's single-hop tables — the HBM-fitting choice on one chip,
+    reference's single-hop tables — the memory-saving choice on one card,
     at the cost of ~1 extra key-switch per composed rotation.  Covers the
     hybrid ladders too (sum/transpose-to-target steps are sums of powers
     of two below N^2).  Enabled via DirectSort(use_minimal_keys=True).
@@ -102,8 +102,8 @@ def minimal_rotations(N: int, max_batch: int = 1 << 16,
     cap_log2 bounds the top key at 2^cap_log2: each keyswitch key is
     ~0.5 GiB at ring 2^17/dnum 4, and the few large tree-reduction
     rotations (2^11..2^13 at N=128) compose from repeated 2^cap_log2
-    steps — ~2 dozen extra key-switches per sort buys ~1.5 GiB of HBM
-    next to the 16 GiB v5e's 7.5 GiB key set (round-4 OOM budget)."""
+    steps — ~2 dozen extra key-switches per sort save ~1.5 GiB of keys.
+    Whether the card would rather hold those keys is not measured yet."""
     num_partition = min(N, max_batch // N)
     num_slots = max(N * num_partition, min(N * N, 2 * max_batch) // 2)
     # top exponent is num_slots/2: composed rotations are always reduced
@@ -147,9 +147,9 @@ class DirectSort:
     use_minimal_keys: generate only the power-of-two key ladder
     (minimal_rotations) and compose every other index through the binary
     decomposer.  At full fidelity (depth 46, ring 2^17) the reference's
-    single-hop key set is ~40 keys x ~0.4 GiB — over a v5e chip's HBM —
-    while the pow-2 ladder fits comfortably at ~2.5x fewer keys, trading
-    ~1 extra key-switch per composed rotation."""
+    single-hop key set is ~40 keys x ~0.4 GiB, while the pow-2 ladder
+    needs ~2.5x fewer keys, trading ~1 extra key-switch per composed
+    rotation."""
     ctx: CkksContext
     N: int
     rot_indices: list[int] = field(default_factory=list)
@@ -172,7 +172,7 @@ class DirectSort:
                                     DecomposeAlgo.BINARY)
         # hoisting tree for baby-step batches: rotations of one source
         # share decomposition prefixes and hoisting precomputes
-        # (reference rotation.h:240-358; wired per VERDICT r3 #8)
+        # (reference rotation.h:240-358)
         self.tree = RotationTree(self.ctx, self.rot_indices, wrap,
                                  DecomposeAlgo.BINARY)
         self.max_batch = self.ctx.n // 2
@@ -226,7 +226,8 @@ class DirectSort:
         ONE cached base-block encode + a device Galois permutation
         (ckks.rotate_plaintext) — the baby-step mask families are all
         slot-rolls of the same block, and re-encoding/transferring each
-        (~48 MB at ring 2^17) dominated the warm sort (round-4 census)."""
+        (~48 MB at ring 2^17, ~130 masks per N=128 sort) would cost a
+        host encode and a transfer each."""
         base = self._pt(self._mask(num_slots, 0, width), ct, num_slots)
         return self.ctx.rotate_plaintext(base, -(k * width - s))
 
@@ -488,8 +489,8 @@ class DirectSort:
     def _gen_hybrid_keys(self):
         """Keys for exactly the ladder steps the hybrid stage performs:
         block b's ladders rotate by -step on 1-bits of b's path and +step
-        on 0-bits, so only those signed steps need keys (HBM-conscious —
-        a full +- set at depth 46 would not fit one v5e chip).  In
+        on 0-bits, so only those signed steps need keys (a full +- set at
+        depth 46 would be dozens of ~0.5 GiB keys).  In
         minimal-key mode no extra keys are generated at all: the ladder
         rotations compose from the pow-2 set via the binary decomposer."""
         if self.use_minimal_keys:

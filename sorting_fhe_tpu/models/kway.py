@@ -1,6 +1,6 @@
 """k-way sorting network [HKC+21] for k in {2, 3, 5} on N = k^M elements.
 
-TPU-native rebuild of /root/reference/src/k-way/ (Masking, EvalUtils,
+JAX rebuild of /root/reference/src/k-way/ (Masking, EvalUtils,
 SortUtils, Sorter) and kway_adapter.h.  One packed ciphertext holds the
 array; each network stage is characterized by (m, logDist, slope) computed
 from the stage index (Masking.cpp:26-47); a slot-role matrix `indices`

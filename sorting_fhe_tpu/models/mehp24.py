@@ -117,7 +117,7 @@ class Mehp24:
         m = np.zeros(sz * sz)
         m[sz * row: sz * row + sz] = 1.0
         # canonical-factor plaintext: the mask product lands back on the
-        # scale ladder instead of drifting by Delta/S[l] (VERDICT r4 #8)
+        # scale ladder instead of drifting by Delta/S[l]
         return self.ctx.mult_plain(c, m, self._slots())
 
     def mask_column(self, c, col):
@@ -231,7 +231,7 @@ def sort_cheb(ctx: CkksContext, c: Ciphertext, n: int,
 def _compare_fn(ctx: CkksContext, m: "Mehp24", dg_c: int, df_c: int,
                 sign_func: SignFunc | None, sign_cfg: SignConfig | None):
     """Comparison kernel selector: f3/g3 iterations by default, or the
-    generic sign evaluator when a SignFunc config is given — the TPU
+    generic sign evaluator when a SignFunc config is given — the
     equivalents of the two sortFG overloads
     (/root/reference/src/mehp24/mehp24_sort.h:37-45)."""
     if sign_func is None:

@@ -10,7 +10,7 @@ Rebuild of /root/reference/src/rotation.h:
                       rotated ciphertexts, with hoisted fast rotations at
                       shared nodes (rotation.h:240-358)
 
-On TPU every rotation already uses the hoisted path (one decomposition per
+Every rotation already uses the hoisted path (one decomposition per
 source ciphertext, shared across rotations — ckks.fast_rotation), so the
 tree's win is caching intermediate *rotated ciphertexts* across calls.
 """

@@ -1,12 +1,12 @@
 """Homomorphic sign approximations.
 
-TPU-native rebuild of /root/reference/src/sign.{h,cpp}: four evaluators
+JAX rebuild of /root/reference/src/sign.{h,cpp}: four evaluators
 selected by SignFunc, with the composite f/g iteration of Cheon et al.,
 "Efficient Homomorphic Comparison Methods with Optimal Complexity"
 (eprint 2019/1234).  Polynomial constants follow that public paper /
 the reference's choices (sign.cpp:9-157); evaluation structure is ours
-(functional JAX ops instead of OpenMP sections — the parallel sections
-fuse on TPU via XLA, see SURVEY.md §2.3).
+(functional JAX ops instead of OpenMP sections — XLA fuses what the
+parallel sections did, see SURVEY.md §2.3).
 
 Lazy bootstrap hooks mirror sign.cpp:160-185; pass a
 core.bootstrap.BootstrapHook (the real EvalBootstrap) or provision depth.

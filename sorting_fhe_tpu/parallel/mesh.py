@@ -1,16 +1,17 @@
-"""Multi-chip sharding for CKKS ciphertext tensors.
+"""Multi-device sharding for CKKS ciphertext tensors.
 
 The reference's only parallelism is OpenMP shared-memory threading
-(SURVEY.md §2.3); the TPU-native equivalents built here:
+(SURVEY.md §2.3); the device-mesh equivalents built here (a 1-D mesh over
+jax.devices(); on GPUs XLA hands the collectives to NCCL over NVLink):
 
 * **Limb parallelism (tensor parallel)** — shard the RNS limb axis of
-  [k, limbs, n] ciphertexts across chips.  Elementwise ops and NTTs are
+  [k, limbs, n] ciphertexts across devices.  Elementwise ops and NTTs are
   limb-independent (zero communication); key-switch basis conversion sums
-  across limbs, which XLA lowers to all-reduces over ICI.
+  across limbs, which XLA lowers to all-reduces.
 * **Batch parallelism (data parallel)** — many independent sort instances
-  sharded on a leading batch axis (free win for throughput serving).
+  sharded on a leading batch axis (not implemented yet).
 * **Coefficient parallelism** — shard the n axis; NTT stages then exchange
-  butterfly partners via ICI collectives (XLA-inserted).
+  butterfly partners via XLA-inserted collectives (not implemented yet).
 
 Single-chip execution is the `mesh=None` fast path; all algorithms run
 unmodified on a mesh because sharding is expressed with

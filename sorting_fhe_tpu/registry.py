@@ -11,7 +11,7 @@ blocks (SURVEY.md §5.6):
   * BitonicSort fixture             /root/reference/tests/BitonicSortTest.cpp:20-55
   * sign-config ladder              /root/reference/tests/DirectSortTest.cpp:113-121
 
-plus the TPU-native CKKS mapping: the reference's 40-bit OpenFHE scaling
+plus this runtime's uint32 CKKS mapping: the reference's 40-bit OpenFHE scaling
 prime becomes a composite pair of ~26-bit uint32 primes (scale_bits=52,
 comp=2) — at ring 2^17 there are no 20-bit NTT primes, so 52 is the
 smallest per-level budget a composite uint32 chain can realise; precision
@@ -125,10 +125,10 @@ _H2_DEPTH = {4: 24, 8: 25, 16: 25, 32: 29, 64: 30, 128: 31, 256: 35,
              512: 36, 1024: 40}
 
 # MEHP24 depths: measured consumption + 2 margin (+4 for the multi-ct
-# split tier N>256).  Measured on the CPU tier (round 5): sortFG consumes
+# split tier N>256).  Measured on the CPU tier: sortFG consumes
 # 8 + 3(dg_c+df_c) + 3(dg_i+df_i) levels (N=4: 29, N=8/16: 32 — canonical
-# -factor plaintext encodes removed the round-4 adjust/anchor overhead
-# that had cost +3 over the reference).  Reference fixtures for
+# -factor plaintext encodes avoid the adjust/anchor levels that would
+# cost +3 over the reference).  Reference fixtures for
 # comparison: 31/35/35/42/42/46/49/57/60 (Mehp24SortTest.cpp:39-72) —
 # ours are now at-or-below the fixture at every N.
 _MEHP_DEPTH = {4: 31, 8: 34, 16: 34, 32: 40, 64: 40, 128: 43, 256: 46,
@@ -139,14 +139,14 @@ def _fits_2e17(depth: int, scale_bits: int = 56) -> bool:
     """Model check: can ANY dnum keep logQP within the ring-2^17 HEStd
     ceiling at this depth?  (uint32-RNS tax: our 56-bit level pairs are
     fatter than the reference's 40-bit primes, so very deep chains that
-    fit OpenFHE at 2^17 need ring 2^18 here — ROUND4_NOTES honest limit;
-    the model is calibrated -1 depth vs the measured depth-56 chain.)"""
+    fit OpenFHE at 2^17 need ring 2^18 here; the model is calibrated
+    -1 depth vs the built depth-56 chain.)"""
     limit = HESTD_128_CLASSIC_LOGQP[1 << 17]
     logq = 3 * 30 + depth * scale_bits
     nq = 3 + 2 * depth
     ksp = -(-nq // 14)                       # largest supported dnum
-    # +31 slack: the measured depth-56 chain came in 54 bits over this
-    # model (round-4 bench), so require one special prime of margin
+    # +31 slack: the built depth-56 chain comes in 54 bits over this
+    # model, so require one special prime of margin
     return logq + ksp * 31 + 31 <= limit
 
 
@@ -219,9 +219,9 @@ def _dnum_for(depth: int, ring_dim: int, scale_bits: int = 56) -> int:
     close as possible to) the 128-bit ceiling.
 
     Prime-size model: level pairs average scale_bits total (the pool
-    pair-picker lands within ~2^-8), special primes ~31 bits.  Round 2's
-    26/30-bit estimate picked dnum=3 for depth 46, whose real chain
-    measured logQP 3547 > 3523 (recalibrated round 3; pool-picker round 4)."""
+    pair-picker lands within ~2^-8), special primes ~31 bits.  A 26/30-bit
+    estimate would pick dnum=3 for depth 46, whose real chain has logQP
+    3547 > 3523."""
     limit = HESTD_128_CLASSIC_LOGQP.get(ring_dim)
     best = 3
     for dnum in (3, 4, 5, 6, 8, 10, 12, 14):
@@ -230,8 +230,8 @@ def _dnum_for(depth: int, ring_dim: int, scale_bits: int = 56) -> int:
         ksp = -(-nq // dnum)
         logqp = logq + ksp * 31
         best = dnum
-        # +31 margin: measured chains run ~1 bit/level over this model
-        # (depth-56 chain measured 3559 vs modeled 3505, round-4 bench)
+        # +31 margin: built chains run ~1 bit/level over this model
+        # (the depth-56 chain has logQP 3559 vs modeled 3505)
         if limit is None or logqp + 31 <= limit:
             break
     return best
@@ -242,16 +242,16 @@ def full_config(p: SortParams, **overrides) -> CkksConfig:
 
     scale_bits=56: at ring 2^17 the NTT prime pool has only ~10 26-bit
     members — 52-bit levels exhaust them by depth ~27 and the canonical
-    ladder diverges (round-4 bench failure).  56-bit levels draw on the
+    ladder diverges.  56-bit levels draw on the
     dense 27-29-bit pool (~80 realizable pairs, depth 56 covered) and
     carry MORE precision than the reference's 40-bit scaling mod.
 
     limb_pad=8: bucket the ~2*depth distinct limb counts of a deep chain
     into multiples of 8 so the per-(kernel, limb-count) XLA compiles drop
-    ~8x (round-3's compile explosion; see CkksConfig.limb_pad)."""
+    ~8x (see CkksConfig.limb_pad)."""
     # resolve scale_bits from overrides BEFORE sizing dnum: a caller
     # overriding scale_bits changes the level-prime budget logQP is
-    # modeled from (ADVICE r4)
+    # modeled from
     sb = overrides.get("scale_bits", 56)
     kw = dict(ring_dim=p.ring_dim_full, mult_depth=p.mult_depth,
               scale_bits=sb, comp=2,

@@ -6,7 +6,7 @@ keys, and ciphertexts with OpenFHE's Serial::{Serialize,Deserialize}ToFile
 system's client/server protocol: the client keygens + encrypts, the server
 computes blind, the client decrypts (SURVEY.md §5.4).
 
-TPU-native equivalents:
+Equivalents here:
   context      -> JSON of CkksConfig   (primes re-derived deterministically)
   public key   -> .npz  {b, a}                       uint64 [nq, n]
   relin key    -> .npz  {k}            uint32 [dnum, 2, nq+nsp, n] (NTT+Mont)
@@ -48,6 +48,8 @@ def load_config(path) -> CkksConfig:
     if d.pop("__magic__", None) != _MAGIC:
         raise ValueError(f"{path}: not a {_MAGIC} context file")
     d.pop("__version__", None)
+    # older context files carry the removed NTT-backend selector
+    d.pop("ntt_backend", None)
     return CkksConfig(**d)
 
 

@@ -3,10 +3,10 @@
 `recrypt_hook` is the test-tier stand-in for EvalBootstrap: decrypt with
 the secret key and re-encrypt fresh.  The reference's test strategy runs
 real bootstrapping inside its k-way/bitonic tests (tests/KWaySortTest.cpp:44-45);
-until the TPU EvalBootstrap lands (SURVEY.md §7 phase 5) the deep-network
-tests exercise the *boot-triggering logic* with this hook — the trigger
-placement, level accounting, and post-boot scales are identical, only the
-noise-refresh mechanism is swapped.  Never available without the secret
+the cheap deep-network tests here exercise the *boot-triggering logic* with
+this hook (the real EvalBootstrap, core/bootstrap.py, has its own tests) —
+the trigger placement, level accounting, and post-boot scales are
+identical, only the noise-refresh mechanism is swapped.  Never available without the secret
 (mirrors DebugEncryption, /root/reference/src/encryption.h:56-93).
 """
 

@@ -3,9 +3,9 @@
 Rebuild of the reference's tests/memory_tracker.{h,cpp}: a background
 thread samples /proc/self/status VmRSS every `interval` seconds, tracking
 the peak and the running average (memory_tracker.cpp:8-98 samples at
-500 ms with a CAS-updated peak).  On TPU the host RSS is not the story,
-so the monitor also snapshots jax device memory_stats() (bytes_in_use /
-peak_bytes_in_use) when a device is available.
+500 ms with a CAS-updated peak).  On an accelerator the host RSS is not
+the story, so the monitor also snapshots the device's memory_stats()
+(bytes_in_use / peak_bytes_in_use).
 
 Usage (the reference's idle/setup/peak protocol,
 tests/DirectSortTest.cpp:125-185):
@@ -36,15 +36,33 @@ def host_rss_gb() -> float:
     return 0.0
 
 
-def device_mem_gb() -> dict[str, float]:
-    """bytes_in_use / peak_bytes_in_use of jax device 0, in GB."""
-    try:
+def device_mem_bytes(device=None) -> dict[str, int]:
+    """bytes_in_use / peak_bytes_in_use of `device` (default: jax device 0).
+
+    A CPU device has no device memory of its own and gives {}; on an
+    accelerator a missing reading is an error, never an empty record."""
+    if device is None:
         import jax
-        st = jax.devices()[0].memory_stats()
-        return {"in_use_gb": st.get("bytes_in_use", 0) / 2 ** 30,
-                "peak_gb": st.get("peak_bytes_in_use", 0) / 2 ** 30}
-    except Exception:
+        device = jax.devices()[0]
+    if device.platform == "cpu":
         return {}
+    st = device.memory_stats() or {}
+    missing = [k for k in ("bytes_in_use", "peak_bytes_in_use")
+               if k not in st]
+    if missing:
+        raise RuntimeError(
+            f"{device.device_kind}: memory_stats() lacks {missing}")
+    return {"bytes_in_use": int(st["bytes_in_use"]),
+            "peak_bytes_in_use": int(st["peak_bytes_in_use"])}
+
+
+def device_mem_gb(device=None) -> dict[str, float]:
+    """device_mem_bytes in GiB, under the MemoryMonitor report's keys."""
+    st = device_mem_bytes(device)
+    if not st:
+        return {}
+    return {"in_use_gb": st["bytes_in_use"] / 2 ** 30,
+            "peak_gb": st["peak_bytes_in_use"] / 2 ** 30}
 
 
 class MemoryMonitor:

@@ -1,12 +1,13 @@
 """Threaded in-process kernel warm-up.
 
-A fresh process descends the modulus chain lazily, paying ~20-40 s of
-lowering + persistent-cache load per (kernel, bucket) — ~30 minutes at
-12 buckets x ~8 kernels (ROUND4_NOTES 'Persistent-cache key anatomy').
-jit dispatch is thread-safe and XLA compiles release the GIL, so a small
-thread pool overlaps the loads; dummy zero operands at each bucket shape
-trigger exactly the executables the evaluator dispatches (the real
-argument path, so persistent entries from previous runs HIT).
+A fresh process descends the modulus chain lazily, compiling (or loading
+from the persistent cache) one executable per (kernel, limb bucket) the
+first time the sort reaches it — a dozen buckets x ~10 kernels at ring
+2^17, serially, inside the first trial.  jit dispatch is thread-safe and
+XLA compiles release the GIL, so a small thread pool overlaps them; dummy
+zero operands at each bucket shape trigger exactly the executables the
+evaluator dispatches (the real argument path, so persistent entries from
+previous runs HIT).
 
 Used by bench.py and the experiments sweep before their first trial.
 """
@@ -17,11 +18,15 @@ import os
 import time
 
 
-def pretouch(ctx, threads: int | None = None, log=None) -> float:
-    """Warm every (kernel, bucket) executable of `ctx`; returns seconds.
+def pretouch(ctx, threads: int | None = None, log=None
+             ) -> tuple[float, dict[tuple[str, int], float]]:
+    """Warm every (kernel, bucket) executable of `ctx`.
 
-    Requires at least one rotation key to be generated already (the
-    rotation kernels are warmed with it)."""
+    Returns (wall seconds, {(kernel, bucket): seconds}).  A kernel's
+    seconds are those of its first dispatch, which blocks through tracing,
+    lowering and compilation (or a persistent-cache load) but not through
+    execution.  Rotation kernels are warmed only if a rotation key exists.
+    """
     import concurrent.futures as cf
     import jax.numpy as jnp
     from ..core import ckks as C
@@ -39,26 +44,35 @@ def pretouch(ctx, threads: int | None = None, log=None) -> float:
     kk = min(ctx.rot_keys) if ctx.rot_keys else None
     rk = ctx.rot_keys.get(kk) if kk is not None else None
     perm = ctx._perm(kk) if kk is not None else None
+    compile_s: dict[tuple[str, int], float] = {}
 
     def touch(lb):
         T = ctx.tables(lb)
         z = jnp.zeros((2, lb, n), jnp.uint32)
         zp = jnp.zeros((lb, n), jnp.uint32)
         w = jnp.zeros((lb,), jnp.uint32)
-        outs = [C._kj_mult_relin(z, z, ctx.relin_key, T),
-                C._kj_square_relin(z, ctx.relin_key, T),
-                C._kj_pt_mul(z, zp, T.q_p, T.q_npi),
-                C._kj_add(z, z, T.q_p.reshape(1, -1, 1)),
-                C._kj_sub(z, z, T.q_p.reshape(1, -1, 1)),
-                C._kj_const_mul(z, w, w, T.q_p),
-                C._kj_encode(zp, w, w, T)]
+        outs = []
+
+        def timed(name, fn, *args):
+            t = time.time()
+            outs.append(fn(*args))
+            compile_s[(name, lb)] = time.time() - t
+            return outs[-1]
+
+        timed("mult_relin", C._kj_mult_relin, z, z, ctx.relin_key, T)
+        timed("square_relin", C._kj_square_relin, z, ctx.relin_key, T)
+        timed("pt_mul", C._kj_pt_mul, z, zp, T.q_p, T.q_npi)
+        timed("add", C._kj_add, z, z, T.q_p.reshape(1, -1, 1))
+        timed("sub", C._kj_sub, z, z, T.q_p.reshape(1, -1, 1))
+        timed("const_mul", C._kj_const_mul, z, w, w, T.q_p)
+        timed("encode", C._kj_encode, zp, w, w, T)
         if lb in lad_for:
-            outs.append(C._kj_rescale(z, ctx._rescale_consts(lad_for[lb]),
-                                      T))
+            timed("rescale", C._kj_rescale, z,
+                  ctx._rescale_consts(lad_for[lb]), T)
         if rk is not None:
-            outs.append(C._kj_rotate_fused(z, rk, perm, T))
-            pre = C._kj_decompose(z[1], T)
-            outs.append(C._kj_fast_rotate(z, pre, rk, perm, T))
+            timed("rotate_fused", C._kj_rotate_fused, z, rk, perm, T)
+            pre = timed("decompose", C._kj_decompose, z[1], T)
+            timed("fast_rotate", C._kj_fast_rotate, z, pre, rk, perm, T)
         for o in outs:
             o.block_until_ready()
         return lb
@@ -68,4 +82,4 @@ def pretouch(ctx, threads: int | None = None, log=None) -> float:
         for lb in ex.map(touch, buckets):
             if log:
                 log(f"[pretouch] bucket {lb} warm ({time.time()-t0:.0f}s)")
-    return time.time() - t0
+    return time.time() - t0, compile_s

@@ -37,7 +37,7 @@ def test_mehp24_sortfg_plain(N):
 def test_mehp24_sortfg_signfunc_default_cfg():
     """The SignFunc overload with sign_cfg omitted must default-construct
     (reference SignConfig() default-constructs, sign.h:25) — regression for
-    the round-3 TypeError (ADVICE r3, mehp24.py:237)."""
+    a TypeError when it was left as None (mehp24.py:237)."""
     from sorting_fhe_tpu.ops.sign import SignFunc
     ctx = PlainContext(1 << 12)
     N = 4
@@ -121,7 +121,7 @@ def test_mehp24_matrix_ops_encrypted():
 
 
 @pytest.mark.skipif(SLOW, reason="full encrypted mehp24 sortFG needs ~30 "
-                    "levels; set SORTING_FHE_RUN_SLOW=1 (bench covers TPU)")
+                    "levels; set SORTING_FHE_RUN_SLOW=1 (bench covers the GPU)")
 def test_mehp24_sortfg_encrypted():
     from sorting_fhe_tpu.core.ckks import CkksContext, CkksConfig
     ctx = CkksContext(CkksConfig(ring_dim=1 << 10, mult_depth=32,

@@ -27,9 +27,8 @@ def test_bitonic_real_bootstrap_ring12():
     ring 2^12, MultDepth 58, sign (4,3,3), inputs in [0,255]
     (BitonicSortTest.cpp:20-72) — and its DUAL error gate: maxError < 1.0
     AND zero slots with error > 0.1 on the 0..255 scale
-    (BitonicSortTest.cpp:88-103).  Round 4's 255*0.01=2.55 gate was ~25x
-    looser than the reference's effective 0.1 bound (VERDICT r4 Weak #1);
-    the reference's gate for bitonic is NOT DirectSortTest's 0.01 — its
+    (BitonicSortTest.cpp:88-103).  A 255*0.01=2.55 gate would be ~25x
+    looser than the reference's effective 0.1 bound; the reference's gate for bitonic is NOT DirectSortTest's 0.01 — its
     own fixture asserts 1.0/0.1 on unnormalized values."""
     from sorting_fhe_tpu.models.bitonic import BitonicSort
     from sorting_fhe_tpu.utils.testvec import vector_with_min_diff
@@ -52,9 +51,9 @@ def test_bitonic_real_bootstrap_ring12():
 
 
 def test_kway_k2_m4_real_bootstrap_ring11():
-    """k=2 M=4 with REAL mid-network bootstraps.  Ring 2^11 (was 2^12 —
-    7.5 CPU-minutes; VERDICT r3 Weak #8 asked for <3): quarter the
-    per-op cost, same stage geometry, same checkLevelAndBoot triggers."""
+    """k=2 M=4 with REAL mid-network bootstraps.  Ring 2^11 rather than
+    2^12 keeps the test to a few CPU-minutes: a quarter of the per-op
+    cost, same stage geometry, same checkLevelAndBoot triggers."""
     from sorting_fhe_tpu.models.kway import KWaySorter
     from sorting_fhe_tpu.utils.testvec import vector_with_min_diff
 

@@ -121,7 +121,7 @@ def test_zero_ciphertext(ctx):
 
 
 def test_match_add_comp1_fixpoint():
-    """Regression (round-2 test_sharded_full_sort): at comp=1 the PS
+    """Regression (found by test_sharded_full_sort): at comp=1 the PS
     Chebyshev recursion produces adds whose operands arrive one limb apart
     with matching scales; _match_add must equalize BOTH limbs and scale
     (ckks.py _match_add fixpoint).  Runs the exact failing path — the

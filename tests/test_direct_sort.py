@@ -6,7 +6,7 @@
    pattern, tests/DirectSortNTest.cpp:130-283): rotation-index-check fed a
    plaintext-computed rank, including the +-noise injection variant.
 3. Full encrypted end-to-end (DirectSortTest pattern) — slow; gated behind
-   SORTING_FHE_RUN_SLOW=1 (bench.py exercises it on TPU every round).
+   SORTING_FHE_RUN_SLOW=1 (bench.py runs it at full size on the GPU).
 """
 
 import os
@@ -163,7 +163,7 @@ def test_rotation_index_check_2n_encrypted(ectx):
 
 
 @pytest.mark.skipif(SLOW, reason="full encrypted sort is slow on CPU; "
-                    "set SORTING_FHE_RUN_SLOW=1 (bench.py covers it on TPU)")
+                    "set SORTING_FHE_RUN_SLOW=1 (bench.py covers it on the GPU)")
 def test_direct_sort_encrypted_n4():
     ctx = CkksContext(CkksConfig(ring_dim=1 << 10, mult_depth=30,
                                  scale_bits=52, comp=2, dnum=6))

@@ -63,8 +63,8 @@ def test_mehp24_sortfg_encrypted_n16():
 
 def test_kway_k5_n25_encrypted():
     """First encrypted run of the k=5 pipeline (_five_sorter,
-    _slot_matching5) — the reference covers it in KWaySort5Test; plain
-    coverage alone was VERDICT r3 Weak #7.  Bootstraps via the recrypt
+    _slot_matching5) — the reference covers it in KWaySort5Test, so plain
+    coverage alone is not enough.  Bootstraps via the recrypt
     hook (the real Bootstrapper is exercised in test_bootstrap_depth)."""
     from sorting_fhe_tpu.models.kway import KWaySorter
     from sorting_fhe_tpu.utils.debug import recrypt_hook

@@ -3,7 +3,7 @@ permutation; reference sort_algo.h:776-1389, tests/DirectSortH*Test.cpp).
 
 Tiers: plaintext-mock for the algorithm logic at several N incl. the
 multi-block N>256 path; encrypted N=4 end-to-end gated behind
-SORTING_FHE_RUN_SLOW (bench.py covers full fidelity on TPU).
+SORTING_FHE_RUN_SLOW (chip_smoke.py runs full fidelity on the GPU).
 """
 
 import os
@@ -94,7 +94,7 @@ def test_sum_columns_to_target_plain():
 
 
 @pytest.mark.skipif(SLOW, reason="encrypted hybrid1 N=4 needs ~34 levels; "
-                    "set SORTING_FHE_RUN_SLOW=1 (bench covers TPU)")
+                    "set SORTING_FHE_RUN_SLOW=1 (bench covers the GPU)")
 def test_hybrid1_encrypted_n4():
     from sorting_fhe_tpu.core.ckks import CkksContext
     from sorting_fhe_tpu.core.params import CkksConfig

@@ -1,9 +1,8 @@
 """Rotation-key streaming: byte-capped LRU + deterministic device regen.
 
 The reference never needs this — OpenFHE keeps every Galois key in 35-85
-GB of host RAM (comparison/experimental_results peak-memory rows).  On a
-16 GB accelerator the MEHP24 key set alone exceeds HBM, so the KeyStore
-regenerates evicted keys on demand (core/keystore.py); these tests pin
+GB of host RAM (comparison/experimental_results peak-memory rows).  Under
+a device-memory budget the KeyStore regenerates evicted keys on demand (core/keystore.py); these tests pin
 the two properties that make that transparent: (a) regeneration is
 bit-deterministic per rotation index, (b) sorts under a tiny budget
 decrypt identically to resident-key sorts.

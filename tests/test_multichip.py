@@ -1,7 +1,7 @@
 """Multi-chip (mesh-sharded) tests on the 8 virtual CPU devices.
 
 The reference has no distributed tests (its only parallelism is OpenMP,
-SURVEY.md §2.3); these cover the TPU-native limb-parallel (TP) sharding
+SURVEY.md §2.3); these cover the limb-parallel (TP) sharding
 path: a full homomorphic step (mult + relinearize + rescale + rotate), a
 sharded constructRank, and a sharded end-to-end sort, all under an
 8-device jax.sharding.Mesh with the sharding asserted on the outputs.
@@ -85,7 +85,7 @@ def test_sharded_construct_rank(sctx, mesh):
 def test_explicit_collective_keyswitch(sctx, mesh):
     """shard_map keyswitch with EXPLICIT all_gathers (SURVEY §5.8 b-c):
     matches the GSPMD evaluator's result and its lowered HLO contains
-    exactly the designed collectives (VERDICT r3 #6)."""
+    exactly the designed collectives."""
     from sorting_fhe_tpu.parallel.collective import ShardedKeyswitch
     ctx = sctx
     N = 4
@@ -116,7 +116,7 @@ def test_explicit_collective_keyswitch(sctx, mesh):
 
 
 def test_explicit_collective_rotate_fused(sctx, mesh):
-    """Explicit-collective fused rotation (VERDICT r4 #7): matches the
+    """Explicit-collective fused rotation: matches the
     GSPMD evaluator, and the per-sort comm budget composes bytes x op
     census."""
     from sorting_fhe_tpu.parallel.collective import ShardedKeyswitch
@@ -145,7 +145,7 @@ def test_explicit_collective_rotate_fused(sctx, mesh):
 
 
 def test_explicit_collective_digit_boundary_spans_device():
-    """Regression (ADVICE r4): a digit boundary INSIDE one device's row
+    """Regression: a digit boundary INSIDE one device's row
     block.  nq=16, dnum=3 -> alpha=6 (digits [0:6],[6:12],[12:16]); on a
     4-device mesh each device owns 4 rows, so device 1 (rows 4..7) spans
     the boundary at 6.  The old global-index lookup into the local

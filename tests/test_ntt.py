@@ -7,6 +7,7 @@ convolution vs an O(n^2) oracle, and the uint32 Montgomery/Shoup kernels.
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 
 from sorting_fhe_tpu.core import nt
@@ -123,3 +124,63 @@ def test_ntt_batched_shapes():
                   for _ in range(3)])  # [3, L, n]
     back = np.asarray(ntt_inv(ntt_fwd(jnp.asarray(a), ctx), ctx))
     np.testing.assert_array_equal(back, a)
+
+
+def _oracle_rows(fn, x, primes):
+    """Per-row host oracle (core/host_poly.py) over [..., L, n]."""
+    from sorting_fhe_tpu.core.host_poly import host_ntt
+    n = x.shape[-1]
+    flat = x.reshape(-1, len(primes), n)
+    out = np.stack([np.stack([getattr(host_ntt(p, n), fn)(row)
+                              for row, p in zip(rows, primes)])
+                    for rows in flat])
+    return out.reshape(x.shape)
+
+
+@pytest.mark.parametrize("case", ["row_subset", "lead_dims"])
+def test_xla_ntt_matches_host_oracle(case):
+    """ntt_fwd_t / ntt_inv_t against the host numpy oracle: on a
+    non-prefix row subset of the table, and on [k, L, n] leading dims."""
+    n = 256
+    primes = nt.find_ntt_primes(28, 6, n)
+    ctx = NttContext(primes, n)
+    sel = np.array([4, 1, 5]) if case == "row_subset" else np.arange(3)
+    ps = [primes[r] for r in sel]
+    lead = (3,) if case == "lead_dims" else ()
+    x = np.stack([rand_u32(lead + (n,), p) for p in ps], axis=-2)
+    fwd = np.asarray(ntt_fwd(jnp.asarray(x), ctx, limb_idx=sel))
+    inv = np.asarray(ntt_inv(jnp.asarray(x), ctx, limb_idx=sel))
+    np.testing.assert_array_equal(fwd, _oracle_rows("fwd", x, ps))
+    np.testing.assert_array_equal(inv, _oracle_rows("inv", x, ps))
+
+
+@pytest.fixture(scope="module")
+def small_ctx():
+    from sorting_fhe_tpu.core.ckks import CkksContext, CkksConfig
+    # comp=1 chains skip the composite prime-pool search
+    return CkksContext(CkksConfig(ring_dim=1 << 8, mult_depth=6,
+                                  scale_bits=26, comp=1, dnum=2))
+
+
+@pytest.mark.parametrize("helper", ["fwd_ext", "inv_sp", "inv_q_dyn"])
+def test_keyswitch_ntt_row_selection(small_ctx, helper):
+    """The evaluator's row-set NTT helpers pick the right table rows:
+    q rows of the level plus the special primes (_fwd_ext), the special
+    primes (_inv_sp), one traced q row (_inv_q_dyn)."""
+    from sorting_fhe_tpu.core import ckks as C
+    P = small_ctx.params
+    l = P.nq - 4                              # a level below the top
+    T = small_ctx.tables(l)
+    sp = list(range(P.nq, P.nq + P.num_special))
+    rows, fn, call = {
+        "fwd_ext": (list(range(l)) + sp, "fwd",
+                    lambda x: C._fwd_ext(x, T)),
+        "inv_sp": (sp, "inv", lambda x: C._inv_sp(x, T)),
+        "inv_q_dyn": ([3], "inv",
+                      lambda x: C._inv_q_dyn(x, T, jnp.int32(3))),
+    }[helper]
+    ps = [P.all_primes[r] for r in rows]
+    x = np.stack([np.stack([rand_u32((small_ctx.n,), p) for p in ps])
+                  for _ in range(2)])         # [k=2, rows, n]
+    got = np.asarray(jax.jit(call)(jnp.asarray(x)))
+    np.testing.assert_array_equal(got, _oracle_rows(fn, x, ps))

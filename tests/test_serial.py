@@ -42,6 +42,20 @@ def test_config_roundtrip(tmp_path):
     assert serial.load_config(p) == cfg
 
 
+def test_config_loads_file_with_removed_ntt_backend(tmp_path):
+    """Context files written while CkksConfig had `ntt_backend` still load
+    (the key is dropped)."""
+    import json
+    cfg = CkksConfig(ring_dim=1 << 10, mult_depth=8, scale_bits=52, comp=2,
+                     dnum=3)
+    p = tmp_path / "cc.json"
+    serial.save_context(p, cfg)
+    d = json.loads(p.read_text())
+    d["ntt_backend"] = "auto"
+    p.write_text(json.dumps(d))
+    assert serial.load_config(p) == cfg
+
+
 def test_config_rejects_foreign_file(tmp_path):
     p = tmp_path / "x.json"
     p.write_text("{}")

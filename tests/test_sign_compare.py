@@ -3,7 +3,7 @@
 Mirrors the reference's SignTest (tests/SignTest.cpp, ring 2^12 cheap
 config) and CompareTest (tests/CompareTest.cpp): sign accuracy at a margin,
 compare producing {0,1}, indicator windows.  Scaled down to ring 2^10 for
-CI speed; bench.py runs full-fidelity parameters on TPU.
+CI speed; bench.py runs full-fidelity parameters on the GPU.
 """
 
 import numpy as np
